@@ -1,6 +1,6 @@
-"""ecc_ldpc_tpu — a TPU-native LDPC codec + Monte-Carlo BER framework.
+"""ecc_ldpc_tpu — an LDPC codec + Monte-Carlo BER framework in JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 simulator `ku-fpg/ecc-ldpc` (a Haskell Monte-Carlo ECC simulator: ECC
 abstraction, LDPC codec tiers, BER sweeps with confidence intervals).
 
@@ -8,8 +8,8 @@ Layering (see SURVEY.md §1.3):
   codes/    host-side code construction & loading (alist, QC tables, standards)
   graph/    H-matrix -> device-ready compiled graphs (edge lists, QC blocks)
   chan/     BPSK + AWGN + LLR (pure jnp)
-  encode/   GF(2) encoders (dense-G MXU matmul; structured back-substitution)
-  decode/   decoders: xla/ oracle tier (pure jnp), pallas/ native TPU kernels
+  encode/   GF(2) encoders (dense-G int8 matmul; structured back-substitution)
+  decode/   decoders: xla/ tiers (pure jnp), the oracle and the GPU path
   dist/     mesh + sharding: batch/EbN0 sharded Monte-Carlo, psum counters
   sim/      Monte-Carlo harness: sweeps, stopping rules, BER/FER reports
   bench/    throughput + roofline + profiling
@@ -17,8 +17,9 @@ Layering (see SURVEY.md §1.3):
 
 The reference's correctness methodology — every optimized decoder tier is
 validated by BER-curve parity against a slow oracle tier — is carried over:
-decode/xla is the oracle for decode/pallas (bit-exact in interpret mode), and
-statistical BER tests pin the waterfall against theory.
+plain-numpy reference decoders (tests/ref_decoders.py) pin the XLA tiers
+bit for bit on the CPU, golden curves (curves/) pin their FER on the GPU,
+and statistical BER tests pin the waterfall against theory.
 """
 
 __version__ = "0.1.0"

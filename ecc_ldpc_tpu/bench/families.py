@@ -1,9 +1,9 @@
 """Per-family decoded-throughput sweep: every shipped code family through
-its best TPU decode path (SURVEY.md §2.2 C24 breadth companion to the
+its default decode path (SURVEY.md §2.2 C24 breadth companion to the
 flagship bench.py number).
 
-Run on the real TPU:
-  JAX_COMPILATION_CACHE_DIR=/root/jax_cache python -m ecc_ldpc_tpu.bench.families
+Run on the GPU:
+  python -m ecc_ldpc_tpu.bench.families
 
 Prints one JSON line per config and a markdown summary table; optionally
 writes the JSON rows to a file with --out. The decoder column is the
@@ -51,16 +51,20 @@ def main(argv=None) -> int:
     ap.add_argument("--only", help="substring filter on code names")
     args = ap.parse_args(argv)
 
-    rows = []
+    from ..compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    rows, failed = [], []
     for code, decoder, batch, ebn0 in DEFAULT_CONFIGS:
         if args.only and args.only not in code:
             continue
         try:
             r = run_benchmark(code=code, decoder=decoder, batch=batch,
                               ebn0_db=ebn0)
-        except Exception as e:  # noqa: BLE001 — sweep must survive one bad cfg
+        except Exception as e:  # noqa: BLE001 — report, then fail the run
             print(f"# {code}: FAILED {type(e).__name__}: {e}",
                   file=sys.stderr, flush=True)
+            failed.append(code)
             continue
         print(r.json_line(), flush=True)
         rows.append(r)
@@ -75,7 +79,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             for r in rows:
                 f.write(r.json_line() + "\n")
-    return 0 if rows else 1
+    return 1 if failed or not rows else 0
 
 
 if __name__ == "__main__":

@@ -1,16 +1,16 @@
-"""Decoded-bits/s scaling study: 1 chip -> 1 host -> N hosts
+"""Decoded-bits/s scaling study: 1 device -> 1 host -> N hosts
 (BASELINE.json:5 "scaling efficiency"; SURVEY.md §2.2 C24).
 
 Batch-parallel scaling: codeword batches sharded over the 'batch' mesh axis
-(zero cross-chip traffic in the decode hot loop — SURVEY.md §5.7 mode 1),
+(zero cross-device traffic in the decode hot loop — SURVEY.md §5.7 mode 1),
 decoder replicated per shard via shard_map. Efficiency(d) =
 throughput(d) / (d * throughput(1)); ideal is 1.0 because decode is
 embarrassingly batch-parallel — measured numbers expose runtime/dispatch
 overheads only.
 
 Usage: python -m ecc_ldpc_tpu.bench.scaling [--code ...] [--decoder ...]
-On a multi-host pod, launch one process per host (jax.distributed
-auto-init) and the study spans all global devices.
+Across hosts, launch one process per host (jax.distributed auto-init
+under a cluster manager) and the study spans all global devices.
 """
 from __future__ import annotations
 
@@ -36,7 +36,6 @@ def sharded_decoder(dec, mesh):
         out_specs=DecodeResult(
             bits=P("batch"), ok=P("batch"), iterations=P("batch")
         ),
-        check_vma=False,  # pallas outputs carry no vma annotation
     )
     def decode(llr):
         return dec(llr)
@@ -49,7 +48,6 @@ def run_scaling(
     decoder: str = "minsum/norm:0.8125/25/noet",
     batch_per_device: int = 256,
     device_counts=None,
-    chain: int = 10,
     tries: int = 3,
 ):
     from ..codes import get_code
@@ -72,16 +70,10 @@ def run_scaling(
             jax.random.normal(jax.random.key(0), (B, spec.n)) * 3,
             jax.sharding.NamedSharding(mesh, P("batch")),
         )
+        # the same timing as the headline bench (throughput.time_compiled)
+        from .throughput import time_compiled
 
-        # the SAME differential scalar-probe harness as the headline bench
-        # (throughput.chained_decode_time): two chain lengths cancel the
-        # flat per-dispatch constant, and the scalar bit-column coupling
-        # keeps the chain sequential without the old full-tensor
-        # `l + 1e-9*bits` add, which charged ~1 GB/step of harness HBM
-        # traffic to the kernel at n=64800 (VERDICT r3 weak item 6)
-        from .throughput import chained_decode_time
-
-        wall = chained_decode_time(sdec, llr, chain=chain, tries=tries)
+        _, wall, _ = time_compiled(sdec, llr, tries=tries)
         thr = B * spec.k / wall / 1e6
         if base is None:
             base = thr

@@ -48,9 +48,9 @@ def make_channel(spec):
     """
     import numpy as _np
 
-    # Elementwise mask arithmetic, NOT fancy-index .at[].set: the set form
-    # lowers to scatter, which this platform's TPU compiler handles
-    # pathologically (hangs/crashes — same family as the gather-chain bug).
+    # Elementwise mask arithmetic, NOT fancy-index .at[].set: the masks are
+    # constants, so the channel stays one fused elementwise kernel with no
+    # scatter.
     keep = _np.ones(spec.n, dtype=_np.float32)
     add = _np.zeros(spec.n, dtype=_np.float32)
     punct = _np.asarray(spec.punctured_cols, dtype=_np.int64)

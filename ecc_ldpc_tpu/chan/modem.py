@@ -48,11 +48,10 @@ compact channel-spec string surface, mirroring the decoder-spec strings:
                   EN 302 307 §5.3.3, sans the 8PSK-rate-3/5 special
                   column order).
 
-TPU-first notes:
-  * The QAM mapper avoids gathers entirely (this platform's TPU compiler
-    crashes on gather chains — see decode/xla/dense_mm.py): bit-to-level
-    lookup is a sum of compare-masked constants over the <=16 levels of
-    one dimension, all elementwise VPU work.
+Implementation notes:
+  * The QAM mapper avoids gathers entirely: bit-to-level lookup is a sum
+    of compare-masked constants over the <=16 levels of one dimension,
+    all elementwise work that fuses into one kernel.
   * The demapper computes EXACT log-likelihood ratios, not max-log: Gray
     square QAM factorizes into two independent Gray-PAM dimensions (I
     carries the first b/2 bits of each symbol, Q the rest), so the exact

@@ -1,4 +1,4 @@
-from .main import main
+from .main import run
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(run())

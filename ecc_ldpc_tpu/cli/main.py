@@ -306,7 +306,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--batch", type=int, default=256)
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--backend", default=None,
-                        help="decoder backend: xla | xla-mm | pallas | auto")
+                        help="decoder backend: auto | xla | xla-mm")
         sp.add_argument("--profile-dir", default=None,
                         help="write a jax.profiler trace here")
         sp.add_argument("--verbose", "-v", action="store_true")
@@ -418,5 +418,14 @@ def main(argv=None) -> int:
     return args.fn(args)
 
 
+def run() -> int:
+    """Program entry point (`python -m ecc_ldpc_tpu.cli`, `ecc-sim`): main()
+    with JAX's persistent compilation cache on (compile_cache.py)."""
+    from ..compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

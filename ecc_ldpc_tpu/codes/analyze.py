@@ -5,8 +5,8 @@ its matrix loaders print dimensions and the Monte-Carlo tables carry the
 rate (SURVEY.md §2.1 R9/R11). This module is the equivalent introspection
 surface: `ecc-sim codes --info <spec>` reports everything that determines
 decoding behavior (degree distributions drive the decoder's unroll groups;
-4-cycles bound BP performance; the QC block shape determines which Pallas
-tier serves the code). Host-side NumPy only — never on the device path.
+4-cycles bound BP performance; the QC block shape determines which
+decoder tier serves the code). Host-side NumPy only — never on the device path.
 """
 from __future__ import annotations
 

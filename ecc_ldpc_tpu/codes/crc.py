@@ -8,9 +8,9 @@ which (a) catches the rare undetected-error frames whose wrong codeword
 still satisfies every parity check, and (b) is the production
 early-termination/ARQ signal.
 
-TPU-first form: CRC is linear over GF(2), so the whole computation is one
-[r, k] 0/1 matrix applied as an integer matmul + mod 2 — MXU work batched
-over frames, no bit-serial loop on device. The matrix is built host-side
+Batched form: CRC is linear over GF(2), so the whole computation is one
+[r, k] 0/1 matrix applied as an integer matmul + mod 2 — batched over
+frames, no bit-serial loop on device. The matrix is built host-side
 by running the bit-serial reference CRC on unit vectors (and that
 reference implementation doubles as the test oracle).
 
@@ -90,9 +90,10 @@ def make_crc(name: str, k: int):
     """(attach, check) jnp functions for k-bit payloads.
 
     attach: [B, k] -> [B, k+r] (payload ++ CRC); check: [B, k+r] -> [B]
-    bool. Integer matmul + mod 2 (MXU path), matrix passed as a jit
-    argument by callers that jit (see decode/api.py platform bug #2
-    note); these helpers close over it for interactive use."""
+    bool. Integer matmul + mod 2; callers that jit at large k pass the
+    matrix as a jit argument (a closed-over array is embedded as a
+    constant in the lowered module); these helpers close over it for
+    interactive use."""
     r, _ = POLYNOMIALS[name]
     M = jnp.asarray(crc_matrix(name, k).T, jnp.int32)  # [k, r]
 

@@ -2,9 +2,9 @@
 
 The reference's "arraylet" tier represents H as circulant blocks for its
 structured WiMAX-style decoders (SURVEY.md §2.1 R8). Here the QC structure is
-the key to TPU-native decoding: a Z x Z circulant-permutation block applied to
-a message slab laid out as [Z, batch] is a *sublane roll*, so the QC decode
-kernels need no gather/scatter at all (graph/qc.py, decode/*/layered*).
+the key to gather-free decoding: a Z x Z circulant-permutation block applied to
+a message slab laid out as [Z, batch] is a *roll* along the Z axis, so the QC
+decoders need no gather/scatter at all (graph/qc.py, decode/xla/layered.py).
 
 Convention: a block with shift s is P^s where P is the Z x Z identity
 cyclically shifted so that row r has its 1 in column (r + s) mod Z. shift -1
@@ -139,8 +139,8 @@ class QCXorCode:
     construction (codes/ieee8023an.py: the coset {a + b*x} places row a's
     1 at column a XOR (b*p) within each point block). Z must be a power
     of two. Same (Z, mb, nb, block_edges()) surface as QCCode, so the
-    graph compiler and all XLA QC decode tiers serve these codes; the
-    Pallas roll kernels gate themselves off via QCGraph.perm."""
+    graph compiler and all XLA QC decode tiers serve these codes
+    (QCGraph.perm selects the permutation)."""
 
     Z: int
     base: np.ndarray  # int32 [mb, nb]; -1 = zero block, s in [0, Z)

@@ -14,7 +14,7 @@ k/n = 1 - (L+J-1)/(vpp*L) for vpp = K/J variables per position.
 
 Why this lands for free here: the coupled protograph is just a banded
 base matrix, so the QC machinery (graph/qc.py), the layered/roll
-decoders, and the Pallas kernel all serve SC codes unchanged, and the
+decoders all serve SC codes unchanged, and the
 exact BEC density evolution (codes/threshold.py) demonstrates threshold
 saturation numerically — e.g. (3,6)-coupled at L=20 reads eps* ~ 0.48
 vs the uncoupled 0.4294 (the (3,6) MAP threshold is ~0.4881).

@@ -1,10 +1,10 @@
 """LDPC decoders.
 
-Two tiers, mirroring the reference's decoder-tier architecture (SURVEY.md
-§2.1 R6-R8, R10): `xla/` is the pure-jnp oracle tier (the correctness
-reference, like the reference's MATLAB-ported "Reference" decoder), and
-`pallas/` is the native TPU kernel tier (the analog of its Accelerate/CUDA
-GPU tier), validated bit-exactly against `xla/`.
+`xla/` holds the pure-jnp tiers, one per schedule and graph form
+(SURVEY.md §2.1 R6-R8, R10): they are both the correctness reference (like
+the reference's MATLAB-ported "Reference" decoder) and what runs on the
+GPU. A hand-written GPU kernel joins them only where a device trace shows
+XLA far from its bound, validated bit-exactly against `xla/`.
 
 Decoders are composed from a schedule (flooding / layered) and a check-node
 update rule (spa-tanh / min-sum with normalization alpha or offset beta) the

@@ -16,12 +16,12 @@ or when per-iteration cost must be minimal:
     matches the unit-energy-BPSK formulation no matter the LLR scale the
     channel front produced.
 
-TPU-first forms, same split as the BP tiers:
+Two forms, same split as the BP tiers:
   * QC graphs: circulant rolls + elementwise math over [nb, Z, B] slabs
-    (zero gathers — platform bug #1 in README), any code size.
+    (zero gathers), any code size.
   * Unstructured graphs: syndrome and unsatisfied-counts as dense
-    incidence matmuls (H @ x, H^T @ s — MXU work), gated to small codes
-    like decode/xla/dense_mm.py.
+    incidence matmuls (H @ x, H^T @ s), gated to small codes like
+    decode/xla/dense_mm.py.
 
 Early termination is exact by construction: the state IS the hard
 decision, so a zero syndrome of the current bits is the true codeword
@@ -124,7 +124,8 @@ def decode_bitflip_qc(
             raise KeyError(f"unknown bit-flip variant {variant!r}")
         return jnp.abs(x - jnp.stack(flips))  # XOR on {0,1} floats
 
-    done0 = ~syndrome_fail(x0) if early_term else jnp.zeros((B,), bool)
+    done0 = (~syndrome_fail(x0) if early_term
+             else jnp.zeros_like(x0[0, 0], dtype=bool))
     iters0 = (x0[0, 0] * 0).astype(jnp.int32)
 
     def body(state):
@@ -153,7 +154,7 @@ def decode_bitflip_qc(
 
 
 # ---------------------------------------------------------------------------
-# Incidence-matmul form (unstructured codes; MXU path, gated like dense_mm)
+# Incidence-matmul form (unstructured codes; gated like dense_mm)
 # ---------------------------------------------------------------------------
 
 
@@ -172,9 +173,12 @@ def decode_bitflip_mm(
     B = llr_t.shape[1]
     deg = jnp.sum(graph.vn_mask.astype(jnp.float32), axis=1)[:, None]
 
+    # every operand is 0/1 or +-1 and every sum a small integer, so the
+    # default precision (TF32 on a GPU) is exact here
     mm = functools.partial(
         jax.lax.dot_general,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.DEFAULT,
         preferred_element_type=jnp.float32,
     )
 
@@ -201,7 +205,8 @@ def decode_bitflip_mm(
         return jnp.abs(x - flip)
 
     x0 = (llr_t < 0).astype(jnp.float32)
-    done0 = ~syndrome_fail(x0) if early_term else jnp.zeros((B,), bool)
+    done0 = (~syndrome_fail(x0) if early_term
+             else jnp.zeros_like(x0[0], dtype=bool))
     iters0 = (x0[0] * 0).astype(jnp.int32)
 
     def body(state):
@@ -257,7 +262,8 @@ def make_bitflip_decoder(
         )
     H = IncidenceOperators.build(graph).H
 
-    # H as a jit ARGUMENT, not a closure capture (platform bug #2)
+    # H as a jit ARGUMENT, not a closure capture (a closed-over array is
+    # embedded as a constant in the lowered module)
     def decode_impl(H, llr):
         return decode_bitflip_mm(
             graph, H, llr, variant=variant, theta=theta,

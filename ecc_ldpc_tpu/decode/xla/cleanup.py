@@ -1,4 +1,4 @@
-"""Post-decode bit-flip cleanup for QC graphs (roll form, TPU-safe).
+"""Post-decode bit-flip cleanup for QC graphs (roll form, gather-free).
 
 The deep-FER tail of min-sum/BP on these codes is dominated by frames
 stuck with one (sometimes two) wrong bits whose neighborhood checks are

@@ -2,8 +2,8 @@
 
 Each op maps variable-to-check messages V (masked) to check-to-variable
 messages C with the leave-one-out semantics of BP: C[i,j] aggregates V[i,k]
-for all k != j in check i. These are the jnp twins of the Pallas kernels in
-decode/pallas/ and the functional equivalents of the reference's tanh
+for all k != j in check i. These are the functional equivalents of the
+reference's tanh
 sum-product (its MATLAB-ported Reference tier) and its "eliminate tanh"
 min-sum tier (SURVEY.md §2.1 R6, R8).
 

@@ -1,12 +1,11 @@
-"""Flooding BP with VN accumulation as incidence-matrix matmuls (MXU path).
+"""Flooding BP with VN accumulation as incidence-matrix matmuls.
 
-TPU-first reformulation of decode/xla/flooding.py: the variable-node
-accumulate (a segmented sum over edges) and the edge re-expansion (a gather)
-become two dense 0/1 incidence-matrix matmuls, which XLA tiles straight onto
-the MXU — no gather/scatter ops anywhere in the hot loop. This matters
-doubly here: the platform's TPU compiler crashes on gather->reduce->gather
-chains (see decode/xla/flooding.py, which remains the CPU oracle), and for
-small/medium codes the MXU path is faster than any gather lowering anyway.
+A reformulation of decode/xla/flooding.py: the variable-node accumulate (a
+segmented sum over edges) and the edge re-expansion (a gather) become two
+dense 0/1 incidence-matrix matmuls — no gather/scatter ops anywhere in the
+hot loop. The gather tier (decode/xla/flooding.py) is the default route and
+this form's oracle; which of the two is faster on small codes is measured
+by chip_smoke.py (PERF.md).
 
   total = llr + S @ C_flat         S: [n, m*dc]  (edge-of-var incidence)
   V_flat = S^T @ total - C_flat    (broadcast totals back to edges)
@@ -14,11 +13,15 @@ small/medium codes the MXU path is faster than any gather lowering anyway.
 
 Memory is O(n * E) for S, so this tier is gated to n*E <= ~2^28 (n~4k for
 (3,6) codes); the long-block families (DVB-S2, 5G NR) decode via their QC
-structure (decode/xla/layered.py, decode/pallas/) instead.
+structure (decode/xla/layered.py) instead.
 
 Bit-compatibility: identical message schedule and CN op as flooding.py; the
 only arithmetic difference is summation order in the VN accumulate (matmul
-vs masked tree-sum), i.e. f32 rounding-level differences only.
+vs masked tree-sum), i.e. f32 rounding-level differences only. That holds
+because the soft products run at Precision.HIGHEST: at the default
+precision a GPU rounds f32 operands to TF32 (10-bit mantissa), which
+truncates the soft messages. The syndrome product multiplies 0/1 values,
+exact at any precision.
 """
 from __future__ import annotations
 
@@ -57,10 +60,10 @@ class IncidenceOperators:
         return IncidenceOperators(S=jnp.asarray(S), H=jnp.asarray(H))
 
 
-def _mm(A, x):
+def _mm(A, x, precision=jax.lax.Precision.HIGHEST):
     return jax.lax.dot_general(
         A, x, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
+        precision=precision, preferred_element_type=jnp.float32,
     )
 
 
@@ -82,7 +85,7 @@ def decode_flooding_mm(
 
     def syndrome_fail(total):
         hard = (total < 0).astype(jnp.float32)  # [n, B]
-        cnt = _mm(ops.H, hard)
+        cnt = _mm(ops.H, hard, jax.lax.Precision.DEFAULT)  # 0/1: exact
         par = cnt - 2.0 * jnp.floor(cnt * 0.5)  # cnt mod 2, exact in f32
         return jnp.any(par > 0.5, axis=0)
 
@@ -114,9 +117,9 @@ def decode_flooding_mm(
 
         _, total, done, iters = jax.lax.while_loop(cond, body, state)
     else:
-        # pure fixed-iteration mode (benchmark semantics, twin of the
-        # fused_mm kernel's): no per-iteration syndrome, no freeze;
-        # truthful syndrome over the emitted bits at the end
+        # pure fixed-iteration mode (benchmark semantics): no
+        # per-iteration syndrome, no freeze; truthful syndrome over the
+        # emitted bits at the end
         def pure_body(_, s):
             V, total = s
             C = cn_op(V, mask3)

@@ -3,7 +3,7 @@
 The functional equivalent of the reference's MATLAB-ported flooding decoder
 (SURVEY.md §3.1 hot loop): per iteration, every check node fires, then every
 variable node accumulates; hard decisions are syndrome-checked for early
-termination. TPU-first formulation:
+termination. Formulation:
 
   - messages live in the padded check view [m, dc, B], batch on lanes;
   - the VN accumulate is a row-gather of check messages into the padded
@@ -82,7 +82,7 @@ def decode_flooding(
         # max_iters flooding iterations, BASELINE.json:2) — no
         # per-iteration syndrome, no freeze; truthful syndrome at the
         # end. Same semantics as every other tier's noet path
-        # (flooding_qc roll/pallas, fused_mm, dense_mm, layered).
+        # (flooding_qc, dense_mm, layered).
         def pure_body(_, s):
             V, total = s
             C = cn_op(V, mask3)

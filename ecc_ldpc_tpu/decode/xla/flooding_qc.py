@@ -1,13 +1,12 @@
-"""Flooding BP over QC graphs, pure jnp — roll-based decoders for min-sum
-(the oracle twin of decode/pallas/flooding_qc.py), exact sum-product
-(tanh rule), and minstar (SURVEY.md §2.2 C12/C13 in QC form).
+"""Flooding BP over QC graphs, pure jnp — roll-based decoders for min-sum,
+exact sum-product (tanh rule), and minstar (SURVEY.md §2.2 C12/C13 in QC
+form).
 
 Same algorithms as decode/xla/flooding.py on the expanded graph, but with
 the QC layout's arithmetic order (per-row reductions in degree-group
 order, posterior accumulation by rolled check messages): rolls and
-elementwise math only, so unlike the gather form every kind here is
-TPU-safe — this is how flooding sum-product runs on-device for the large
-QC families. BER curves coincide with the gather-form decoders
+elementwise math only, no gathers — this is how flooding runs on the
+device for the large QC families. BER curves coincide with the gather-form decoders
 statistically (summation order differs).
 """
 from __future__ import annotations
@@ -117,7 +116,8 @@ def decode_flooding_qc(
         constrain = lambda x: x  # noqa: E731
     llr3 = constrain(llr.T.astype(jnp.float32).reshape(nb, Z, B))
     total0 = llr3
-    C0 = constrain(jnp.zeros((graph.num_block_edges, Z, B), jnp.float32))
+    # zeros_like keeps the data's varying mesh axes under shard_map
+    C0 = constrain(jnp.zeros_like(llr3, shape=(graph.num_block_edges, Z, B)))
 
     rows = [graph.layer_edges(i) for i in graph.layer_order]
 

@@ -7,10 +7,10 @@ the iterations of flooding, which is why the standards families (802.11n /
 WiMAX / DVB-S2 / 5G NR) are decoded this way. The reference's QC "arraylet"
 tier (SURVEY.md §2.1 R8) is its structured analog.
 
-TPU-first form: message slabs are [Z, batch] (batch on lanes); circulant
-addressing is jnp.roll along the sublane axis with *static* shifts unrolled
-at trace time from the base matrix — zero gathers. This tier is the oracle
-twin of decode/pallas/layered_qc.py.
+Form: message slabs are [Z, batch] (batch last); circulant addressing is
+jnp.roll along the Z axis with *static* shifts unrolled at trace time from
+the base matrix — zero gathers. This tier is both the oracle and the GPU
+path; tests/ref_decoders.py pins it bit for bit on the CPU.
 
 State per decode: total [nb, Z, B] posteriors, C [BE, Z, B] check-aligned
 check-to-variable messages.
@@ -41,8 +41,7 @@ def _cn_minsum_axis0(V, alpha: float, beta: float, signbit: bool = False):
     """Leave-one-out two-min CN update over axis 0 of [d, Z, B].
 
     signbit=True uses IEEE sign-bit semantics (-0.0 is negative) — the
-    float-level equivalent of the Pallas kernel's sign_mode='bitxor'
-    integer XOR accumulation; bit-identical to it in f32."""
+    float-level form of an integer XOR of the messages' sign bits."""
     if signbit:
         negb = jnp.signbit(V)
     else:
@@ -63,10 +62,9 @@ def _cn_minsum_axis0(V, alpha: float, beta: float, signbit: bool = False):
 
 def _cn_spa_seq(V, signbit: bool = False):
     """Exact sum-product (tanh rule) over axis 0 of [d, Z, B], leave-one-out
-    via a SEQUENTIAL log|tanh| accumulation — the op order of the Pallas
-    layered kernel's running ltacc (bit-exact twin in f32), unlike
-    flooding_qc._cn_spa_qc's jnp.sum. Magnitude uses
-    2*arctanh(t) = log1p(t) - log1p(-t), the form Mosaic can lower."""
+    via a SEQUENTIAL log|tanh| accumulation in edge order (the op order
+    tests/ref_decoders.py follows), unlike flooding_qc._cn_spa_qc's
+    jnp.sum. Magnitude uses 2*arctanh(t) = log1p(t) - log1p(-t)."""
     a = jnp.abs(V)
     lt = jnp.log(jnp.tanh(jnp.clip(a, 1e-10, 40.0) * 0.5))
     ltacc = lt[0]
@@ -128,12 +126,9 @@ def decode_layered(
     all mb layers. cn selects the check-node rule: 'minsum' (alpha/beta
     normalized/offset), or the exact-BP forms 'spa' (tanh rule) /
     'minstar' (box-plus) — layered schedules of the oracle-grade
-    algorithms, twins of the Pallas kernel's kinds (VERDICT r1 item 5).
-    sign_mode='bitxor' selects IEEE signbit sign semantics
-    (matches the Pallas kernel's integer XOR sign accumulation). The
-    kernel can only realize bitxor on dup-free graphs (its classic
-    fallback sweep counts negatives), so the oracle applies the same
-    degradation — keeping the bit-exact-twin contract on every graph.
+    algorithms (VERDICT r1 item 5). sign_mode='bitxor' selects IEEE
+    signbit sign semantics; graphs with intra-layer duplicate columns
+    (the accumulate path) always count negatives.
 
     alpha/beta may be scalars or per-iteration arrays of length
     max_iters (learned NOMS schedules, see learn/noms.py); iteration t
@@ -149,13 +144,14 @@ def decode_layered(
     dup_free = graph.intra_layer_dup_free
     cn_exact = _cn_for(cn)  # None for minsum
     if not dup_free:
-        sign_mode = "count"  # mirror the kernel's bitxor-needs-dup-free rule
+        sign_mode = "count"  # the accumulate path counts negatives
     alphas = jnp.broadcast_to(jnp.asarray(alpha, jnp.float32), (max_iters,))
     betas = jnp.broadcast_to(jnp.asarray(beta, jnp.float32), (max_iters,))
     total0 = llr.T.astype(jnp.float32).reshape(nb, Z, B)
     if quant is not None:
         total0 = quantize(total0, *quant)
-    C0 = jnp.zeros((graph.num_block_edges, Z, B), jnp.float32)
+    # zeros_like keeps the data's varying mesh axes under shard_map
+    C0 = jnp.zeros_like(total0, shape=(graph.num_block_edges, Z, B))
     done0 = ~_syndrome_fail(graph, total0)
     iters0 = (total0[0, 0] * 0).astype(jnp.int32)  # varying-axes-safe zero
 
@@ -170,8 +166,7 @@ def decode_layered(
         on DVB-S2 (frames fixed-iteration mode decodes fine). Convergence
         therefore additionally requires zero sign flips during the sweep:
         then every layer's parity was evaluated on the final hard-decision
-        vector, making pass-with-no-flips an EXACT syndrome. The Pallas
-        twin implements the identical accumulation."""
+        vector, making pass-with-no-flips an EXACT syndrome."""
         fail = jnp.zeros((total.shape[-1],), jnp.float32)
         flip = jnp.zeros((total.shape[-1],), jnp.bool_)
         for i in graph.layer_order:
@@ -195,17 +190,15 @@ def decode_layered(
             if quant is not None:
                 Cnew = quantize(Cnew, *quant)
             # posterior update. Dup-free graphs use the set form
-            # `extrinsic + Cnew` (same f32 op order as the Pallas kernel's
-            # alignment-carrying update, so the tiers stay bit-identical);
-            # graphs with intra-layer duplicate columns must ACCUMULATE via
-            # the delta-add form. All indices static =>
-            # dynamic_update_slice, never scatter (TPU-safe).
-            # multi-edge graphs + minstar: the Pallas classic-exact sweep
-            # emits pass 2 BACKWARD (running box-plus suffix), so posterior
-            # deltas for duplicate columns accumulate in that order; mirror
-            # it to keep the bit-exact-twin contract (f32 adds don't
-            # commute). All other paths touch each column once per layer
-            # (dup-free) or match the kernel's forward order already.
+            # `extrinsic + Cnew`; graphs with intra-layer duplicate
+            # columns must ACCUMULATE via the delta-add form. All indices
+            # static => dynamic_update_slice, never scatter.
+            # multi-edge graphs + minstar: posterior deltas for duplicate
+            # columns accumulate BACKWARD, the order of the running
+            # box-plus suffix (f32 adds don't commute; the golden curves
+            # and tests/ref_decoders.py follow this order). All other
+            # paths touch each column once per layer (dup-free) or
+            # accumulate forward.
             jorder = range(len(edges))
             if cn == "minstar" and not dup_free:
                 jorder = range(len(edges) - 1, -1, -1)
@@ -214,7 +207,7 @@ def decode_layered(
                 if dup_free:
                     new_aligned = Vt[j] + Cnew[j]
                     if track:
-                        # signbit compare matches the kernel's integer form
+                        # signbit compare: -0.0 counts as negative
                         flip = flip | jnp.any(
                             jnp.signbit(new_aligned)
                             != jnp.signbit(rolled[j]),
@@ -255,7 +248,6 @@ def decode_layered(
     else:
         # pure fixed-iteration mode (the benchmark configuration): no
         # freeze, no per-iteration syndrome — literally max_iters sweeps.
-        # The Pallas twin implements the same.
         def pure_body(t, st):
             total, C = st
             total, C, _ = sweep(total, C, alphas[t], betas[t], track=False)

@@ -7,8 +7,9 @@ sharded over chips. Axes:
   'batch' — data-parallel codeword axis (primary; SURVEY.md §2.2 DP)
   'snr'   — Eb/N0 grid axis (SURVEY.md §2.2 grid-parallel)
 
-Collectives ride ICI within a slice and DCN across hosts automatically via
-XLA; no transport code exists anywhere in this framework (§5.8).
+Collectives go over NVLink/NCCL between the GPUs of a host and over the
+network across hosts, placed automatically by XLA; no transport code
+exists anywhere in this framework (§5.8).
 """
 from __future__ import annotations
 
@@ -50,10 +51,12 @@ def maybe_init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-host rendezvous (SURVEY.md §3.5). On TPU VMs with env-provided
-    topology, jax.distributed.initialize() autodetects everything; explicit
-    args are for manual launches. No-op when already initialized or when
-    running single-process."""
+    """Multi-host rendezvous (SURVEY.md §3.5). Under a cluster manager
+    that JAX detects (SLURM, Open MPI, ...) jax.distributed.initialize()
+    finds its peers itself; explicit args are for manual launches. No-op
+    when already initialized or when running single-process — including
+    a plain one-host launch, where JAX finds no cluster and asks for a
+    coordinator address."""
     if num_processes is not None and num_processes <= 1 and coordinator is None:
         return
     try:
@@ -62,6 +65,10 @@ def maybe_init_distributed(
             num_processes=num_processes,
             process_id=process_id,
         )
-    except (RuntimeError, ValueError) as e:  # already initialized / not a pod
-        if "already" not in str(e).lower():
-            raise
+    except (RuntimeError, ValueError) as e:
+        msg = str(e).lower()
+        if "already" in msg:
+            return
+        if coordinator is None and "coordinator_address" in msg:
+            return  # no cluster detected: single-process run
+        raise

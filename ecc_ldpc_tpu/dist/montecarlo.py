@@ -2,7 +2,7 @@
 
 Implements the mandated distribution scheme (BASELINE.json:5): huge codeword
 batches sharded over a 'batch' mesh axis, Eb/N0 grid points sharded over an
-'snr' axis, frame/bit-error counters reduced with psum over ICI.
+'snr' axis, frame/bit-error counters reduced with psum (NCCL all-reduce on GPUs).
 
 PRNG discipline (SURVEY.md §5.2, §7.2 item 6): every frame's randomness is
 derived as fold_in(fold_in(fold_in(root, point_global_idx), FRAME_TAG),
@@ -123,9 +123,6 @@ def make_sharded_step(
         mesh=mesh,
         in_specs=(P(), P("snr"), P()),
         out_specs=(P(), P(), P(), P()),
-        # pallas_call inside shard_map trips the vma type checker (its
-        # ShapeDtypeStruct outputs carry no vma annotation)
-        check_vma=False,
     )
     def step(root_key, ebn0_shard, step_index):
         snr_shard = jax.lax.axis_index("snr")
@@ -148,14 +145,20 @@ def make_sharded_step(
             return jnp.stack([be, fe, it]), be2
 
         local, local2 = jax.lax.map(one_point, jnp.arange(s_local))
-        local = jax.lax.psum(local, "batch")    # [s_local, 3] int32
-        local2 = jax.lax.psum(local2, "batch")  # [s_local] f32
-        # gather the per-point counters over 'snr' so the returned arrays
-        # are REPLICATED: in a multi-process mesh an snr-sharded output is
-        # not fully addressable from any one host and np.asarray would
-        # raise; the counters are a few ints, replication is free
-        full = jax.lax.all_gather(local, "snr", axis=0, tiled=True)
-        full2 = jax.lax.all_gather(local2, "snr", axis=0, tiled=True)
+        # place this shard's points in the full grid and psum over both
+        # axes: the batch shards add up, the snr shards fill disjoint
+        # slots. The counters come out REPLICATED — in a multi-process
+        # mesh an snr-sharded output is not fully addressable from any one
+        # host and np.asarray would raise; they are a few numbers each.
+        start = snr_shard * s_local
+        full = jax.lax.dynamic_update_slice(
+            jnp.zeros((n_snr_shards * s_local, 3), local.dtype), local,
+            (start, 0))
+        full2 = jax.lax.dynamic_update_slice(
+            jnp.zeros((n_snr_shards * s_local,), local2.dtype), local2,
+            (start,))
+        full = jax.lax.psum(full, ("batch", "snr"))    # int32
+        full2 = jax.lax.psum(full2, ("batch", "snr"))  # f32
         return full[:, 0], full[:, 1], full[:, 2], full2
 
     return step

@@ -1,8 +1,8 @@
-"""Dense-generator GF(2) encoding as an int8 MXU matmul (SURVEY.md §2.2 C10).
+"""Dense-generator GF(2) encoding as an int8 matmul (SURVEY.md §2.2 C10).
 
 Host side derives a systematic generator from H by GF(2) elimination; device
 side encodes batches as one int8 matmul with int32 accumulation followed by
-mod-2 — the MXU-friendly formulation of the reference's G-multiply encode
+mod-2 — the matmul formulation of the reference's G-multiply encode
 (SURVEY.md §2.1 R6). Intended for small/medium n; the standards families use
 encode/structured.py instead.
 """

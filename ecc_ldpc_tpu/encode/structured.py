@@ -20,8 +20,8 @@ any x works, and a nonzero middle shift y just makes p_0 a rotation of
 the row-sum (802.16e §8.4.9.2.2's h_b(kb) column convention).
 
 All block ops are jnp.roll along the Z axis with static shifts — the
-encoder is a short unrolled roll/XOR chain, MXU-free and gather-free,
-batched over frames on the lane dimension. Works for ANY Z and any table
+encoder is a short unrolled roll/XOR chain, matmul-free and gather-free,
+batched over frames on the last axis. Works for ANY Z and any table
 with this skeleton (recalled standard tables and surrogates alike);
 correctness is asserted against H at build time for a random batch.
 """
@@ -99,8 +99,7 @@ class DualDiagonalEncoder:
         self._encode = jax.jit(self._encode_impl)
         if validate:
             # validate with the host-side NumPy twin (no device compile in
-            # the constructor — TPU compiles through the remote helper are
-            # expensive and unnecessary for a structural self-check)
+            # the constructor — unnecessary for a structural self-check)
             rng = np.random.default_rng(0)
             msg = rng.integers(0, 2, (4, self.k), dtype=np.uint8)
             cw = self.encode_numpy(msg)

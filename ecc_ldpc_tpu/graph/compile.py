@@ -1,9 +1,10 @@
 """Compile a CodeSpec's H matrix into device-ready index tensors.
 
 The reference's decoders walk H's sparse structure directly in Haskell
-(SURVEY.md §2.1 R6-R8); on TPU the graph must instead become *static index
-tensors* so message passing is expressible as batched row-gathers with the
-128-wide lane dimension carrying the codeword batch (SURVEY.md §2.2 C8).
+(SURVEY.md §2.1 R6-R8); on an accelerator the graph must instead become
+*static index tensors* so message passing is expressible as batched
+row-gathers with the last axis carrying the codeword batch (SURVEY.md §2.2
+C8).
 
 Layout: the padded check-side view [m, dc_max] is the canonical edge space —
 edge (i, j) is slot j of check i, flat id i*dc_max + j. Messages live as

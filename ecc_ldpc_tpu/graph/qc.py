@@ -1,25 +1,23 @@
-"""Compiled quasi-cyclic graph: block-edge lists for roll-based kernels.
+"""Compiled quasi-cyclic graph: block-edge lists for roll-based decoders.
 
-The TPU-native representation of QC-LDPC codes (SURVEY.md §2.2 C8/C18): a
+The structured representation of QC-LDPC codes (SURVEY.md §2.2 C8/C18): a
 message slab for one Z x Z circulant block is laid out [Z, batch] with Z on
-sublanes and batch on lanes, so applying the circulant permutation P^s is a
-*roll* along the sublane axis — jnp.roll (static shifts, XLA tier) or
-pltpu.roll (dynamic shifts from SMEM, Pallas tier). No gather/scatter exists
-anywhere in the QC decode path, which sidesteps both the platform's
-gather-chain compiler bug and TPU's lack of vector-gather.
+the leading axis and batch on the trailing one, so applying the circulant
+permutation P^s is a jnp.roll along axis 0 with a static shift unrolled at
+trace time. No gather/scatter exists anywhere in the QC decode path.
 
 Alignment convention: a slab associated with block-edge e is CHECK-aligned
 (indexed by the check's row r inside the block-row). Check r connects to
 variable (r + shift) % Z, so:
   variable-aligned view = roll(check_aligned, +shift)
   check-aligned view    = roll(variable_aligned, -shift)
-with roll(x, s)[i] = x[(i - s) % Z] (np.roll semantics; pltpu.roll matches).
+with roll(x, s)[i] = x[(i - s) % Z] (np.roll semantics).
 
 Block-permutation families (perm="xor"): IEEE 802.3an's RS-based H is six
 64-row blocks where check r connects variable r XOR s (codes/ieee8023an.py)
 — GF(2)-additive permutations, not circulants. The same [Z, batch] slab
 layout serves them with the roll replaced by xor_perm (reshape + flip on
-the bit axes of s — one XLA reverse op, still gather-free and TPU-legal).
+the bit axes of s — one XLA reverse op, still gather-free).
 XOR perms are involutions, so both alignment directions apply the SAME
 permutation. QCGraph.perm selects the block-permutation kind; the XLA
 tiers consume it through to_check_align/to_var_align below.
@@ -70,34 +68,22 @@ def to_var_align(x: jax.Array, s: int, perm: str) -> jax.Array:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class QCGraph:
-    """Device-ready QC graph."""
+    """QC graph as static block-edge triples: every field is trace-time
+    data that the decoders unroll into static rolls."""
 
-    # static
     Z: int = dataclasses.field(metadata=dict(static=True))
     mb: int = dataclasses.field(metadata=dict(static=True))
     nb: int = dataclasses.field(metadata=dict(static=True))
     num_block_edges: int = dataclasses.field(metadata=dict(static=True))
-    dcb_max: int = dataclasses.field(metadata=dict(static=True))
-    dvb_max: int = dataclasses.field(metadata=dict(static=True))
     k: int = dataclasses.field(metadata=dict(static=True))
     name: str = dataclasses.field(metadata=dict(static=True))
     # block-permutation kind: "roll" (circulant P^s) or "xor" (a -> a^s);
     # the XLA tiers route every alignment change through to_check_align/
-    # to_var_align, the Pallas tiers serve "roll" only (supports() gates)
+    # to_var_align
     perm: str = dataclasses.field(metadata=dict(static=True))
-    # host-side copies for trace-time (static) unrolling in the XLA tier
     be_row_np: tuple = dataclasses.field(metadata=dict(static=True))
     be_col_np: tuple = dataclasses.field(metadata=dict(static=True))
     be_shift_np: tuple = dataclasses.field(metadata=dict(static=True))
-
-    # device data (for the Pallas tier: shifts via scalar prefetch)
-    be_row: jax.Array  # int32 [BE]
-    be_col: jax.Array  # int32 [BE]
-    be_shift: jax.Array  # int32 [BE]
-    row_be: jax.Array  # int32 [mb, dcb_max]  block-edge ids per block-row
-    row_mask: jax.Array  # bool [mb, dcb_max]
-    col_be: jax.Array  # int32 [nb, dvb_max]
-    col_mask: jax.Array  # bool [nb, dvb_max]
 
     @property
     def n(self) -> int:
@@ -126,10 +112,9 @@ class QCGraph:
     @property
     def layer_order(self):
         """Canonical layered processing order: block-rows stably sorted by
-        degree. Degree-grouping lets the Pallas kernel run one exact-degree
-        unrolled loop per group (no padding slots, no validity masks); the
-        XLA oracle iterates the same order so both tiers share fixed
-        points. Any fixed row order is a valid layered schedule."""
+        degree. Any fixed row order is a valid layered schedule; this one
+        is what the golden curves (curves/) were measured with, so the
+        layered and flooding-QC tiers keep it."""
         degs = [len(self.layer_edges(i)) for i in range(self.mb)]
         return tuple(sorted(range(self.mb), key=lambda i: degs[i]))
 
@@ -138,7 +123,7 @@ class QCGraph:
         """True when no block-row touches the same block-column twice.
 
         Gates the alignment-carrying ("delta shift") layered update used by
-        both decode tiers: posteriors are stored in the rotation of the last
+        the layered tier: posteriors are stored in the rotation of the last
         layer that touched them and written back as `slab + Cnew` (one roll
         per edge-visit instead of two). With a duplicate column inside one
         layer the second write would clobber the first's message update, so
@@ -151,19 +136,6 @@ class QCGraph:
                 return False
         return True
 
-    @property
-    def layer_groups(self):
-        """(degree, rows_tuple) groups following layer_order."""
-        order = self.layer_order
-        groups = []
-        for i in order:
-            d = len(self.layer_edges(i))
-            if groups and groups[-1][0] == d:
-                groups[-1][1].append(i)
-            else:
-                groups.append((d, [i]))
-        return tuple((d, tuple(rows)) for d, rows in groups)
-
 
 def qc_graph_from_block_edges(
     Z: int, mb: int, nb: int, br, bc, sh, *, k: int, name: str = "qc",
@@ -175,7 +147,7 @@ def qc_graph_from_block_edges(
     cell), this admits PARALLEL block-edges — multi-edge protographs, where
     a block-row touches the same block-column through two different
     circulants. Such graphs have intra_layer_dup_free == False and route
-    both layered tiers onto their accumulate ("classic" 2-roll) paths."""
+    the layered tier onto its accumulate ("classic" 2-roll) path."""
     br = np.asarray(br, np.int32)
     bc = np.asarray(bc, np.int32)
     sh = np.asarray(sh, np.int32)
@@ -192,33 +164,11 @@ def qc_graph_from_block_edges(
         raise ValueError(f"block rows must lie in [0, {mb})")
     if BE and (bc.min() < 0 or bc.max() >= nb):
         raise ValueError(f"block cols must lie in [0, {nb})")
-    dcb = np.bincount(br, minlength=mb)
-    dvb = np.bincount(bc, minlength=nb)
-    dcb_max, dvb_max = int(dcb.max()), int(dvb.max())
-
-    row_be = np.zeros((mb, dcb_max), np.int32)
-    row_mask = np.zeros((mb, dcb_max), bool)
-    col_be = np.zeros((nb, dvb_max), np.int32)
-    col_mask = np.zeros((nb, dvb_max), bool)
-    fr = np.zeros(mb, np.int32)
-    fc = np.zeros(nb, np.int32)
-    for e in range(BE):
-        i, j = br[e], bc[e]
-        row_be[i, fr[i]] = e
-        row_mask[i, fr[i]] = True
-        fr[i] += 1
-        col_be[j, fc[j]] = e
-        col_mask[j, fc[j]] = True
-        fc[j] += 1
-
     return QCGraph(
-        Z=Z, mb=mb, nb=nb, num_block_edges=BE,
-        dcb_max=dcb_max, dvb_max=dvb_max, k=k, name=name, perm=perm,
+        Z=Z, mb=mb, nb=nb, num_block_edges=BE, k=k, name=name, perm=perm,
         be_row_np=tuple(int(x) for x in br),
         be_col_np=tuple(int(x) for x in bc),
         be_shift_np=tuple(int(x) for x in sh),
-        be_row=br, be_col=bc, be_shift=sh,
-        row_be=row_be, row_mask=row_mask, col_be=col_be, col_mask=col_mask,
     )
 
 

@@ -1,7 +1,7 @@
 """Learned per-iteration normalized/offset min-sum (neural min-sum).
 
 The technique of arXiv 1701.05931 (Neural Offset Min-Sum, one of the
-driver-retrieved pattern papers, PAPERS.md) restated TPU-natively: the
+driver-retrieved pattern papers, PAPERS.md) restated in JAX: the
 layered min-sum decoder is an unrolled differentiable computation in JAX,
 so the per-iteration normalization alpha_t and offset beta_t are just
 parameters — train them by gradient descent through the decoder itself
@@ -9,8 +9,7 @@ parameters — train them by gradient descent through the decoder itself
 
 The trained schedule runs in PRODUCTION through the stock XLA layered
 decoder, which accepts per-iteration alpha/beta arrays
-(decode/xla/layered.py); the Pallas kernel bakes scalars, so learned
-schedules serve through backend='xla'. `unrolled_posteriors` here is the
+(decode/xla/layered.py). `unrolled_posteriors` here is the
 training twin of that decoder: same sweep order, same CN rule, but it
 returns every iteration's soft posteriors for the multi-loss — a parity
 test pins its hard decisions to decode_layered's (tests/learn/).
@@ -122,7 +121,7 @@ def train_noms(
 
     Returns (NomsParams, losses). Parameters are clipped to the sane
     decoder region after every step (alpha in [0.5, 1.25], beta >= 0).
-    Runs on whatever backend JAX is on (CPU for tests, TPU for speed).
+    Runs on whatever backend JAX is on (CPU for tests, GPU for speed).
     """
     import optax
 

@@ -6,7 +6,7 @@ do I need for FER 1e-2 with this code/decoder?" (and coding gain = the
 difference between two configs' answers). This tool bisects Eb/N0 over
 the Monte-Carlo pipeline.
 
-TPU-first detail that makes this cheap: the jitted step function takes
+The detail that makes this cheap: the jitted step function takes
 Eb/N0 as a *traced* scalar (sim/runner.py), so one compilation serves
 every probe point of the search — the whole bisection reuses a single
 executable.

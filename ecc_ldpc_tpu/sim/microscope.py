@@ -5,12 +5,11 @@ trapping sets — a variable nodes whose induced subgraph leaves b checks
 unsatisfied (odd-degree). The reference's whole methodology stops at
 curve parity (SURVEY.md §4.1); this module is the production-analysis
 tier above it, and productizes the manual failure microscopy of round 1
-(curves/dvbs2_64800_12_deep_tpu.json provenance notes: deep-tail events
-were (a<=4, b<=3) sets on the staircase — found by hand then, by this
-harness now).
+(deep-tail events of dvbs2/64800/12 were (a<=4, b<=3) sets on the
+staircase — found by hand then, by this harness now; docs/DESIGN.md).
 
 Method: empirical harvesting. Decode batches at an operating SNR with
-the production decoder (TPU-accelerated through the normal ECC facade),
+the production decoder (on the device, through the normal ECC facade),
 keep the failed frames, and classify each failure's error support:
 
   a            |{v : bits[v] != tx[v]}|
@@ -171,7 +170,7 @@ def harvest(code: str, decoder: str, *, ebn0_db: float,
     """Decode `frames` frames at ebn0_db and classify every failure.
 
     Runs through the normal ECC facade (so the production decode path,
-    TPU included, is what gets microscoped). Classification is host-side
+    on the device, is what gets microscoped). Classification is host-side
     and cheap at production failure rates; `max_stored` caps the
     per-failure detail list (counts stay exact beyond it)."""
     import jax

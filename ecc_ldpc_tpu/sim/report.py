@@ -99,6 +99,58 @@ def curves_overlap(
     return True
 
 
+# Golden points a re-measure can resolve: FER >= 2e-2 gives ~80+ expected
+# frame errors in a 4096-frame budget.
+GOLDEN_MIN_FER = 2e-2
+
+
+def golden_gate(measured: Sequence[PointResult],
+                golden: Sequence[PointResult]) -> tuple:
+    """The golden-curve regression gate: (passed, report) for a re-measure
+    of a golden curve's points (curves/*_golden.json, matched by Eb/N0).
+
+    FER: Wilson-CI overlap, except near saturation (golden FER >= 0.5)
+    where a 0.8-1.25x ratio band also passes — at the iteration cap two
+    decoder tiers legitimately disagree by a few percent on WHICH
+    marginal frames converge within the cap (measured: recalled BG1 at
+    0.8 dB reads 0.63 on the CPU vs a 0.68 golden, CIs adjacent but
+    disjoint), and a real regression at saturation either pushes FER to
+    ~1 or moves the whole waterfall, which the mid-band point catches.
+
+    BER: the stored CI is binomial over BITS, but bit errors cluster in
+    failed frames, so at high-FER points the true sampling variance is
+    far larger than binomial (measured: two tiers of the flagship at
+    1.0 dB differ ~19% in BER at statistically identical FER). BER passes
+    at CI overlap (curves_overlap) OR within a 2x band — a real decoder
+    regression moves BER an order of magnitude; a tier/clustering
+    artifact stays inside."""
+    by_ebn0 = {round(r.ebn0_db, 6): r for r in golden}
+    pairs = [(m, by_ebn0[round(m.ebn0_db, 6)]) for m in measured]
+    if not pairs:
+        raise ValueError("no measured points to gate")
+
+    def fer_ok(m, r):
+        lo, hi = m.fer_ci
+        if not (r.fer_ci[1] < lo or hi < r.fer_ci[0]):
+            return True
+        return r.fer >= 0.5 and 0.8 <= m.fer / r.fer <= 1.25
+
+    fer_pass = all(fer_ok(m, r) for m, r in pairs)
+    ms, rs = [m for m, _ in pairs], [r for _, r in pairs]
+    ber_pass = curves_overlap(ms, rs, metric="ber") or all(
+        0.5 <= m.ber / r.ber <= 2.0 for m, r in pairs if r.ber > 0
+    )
+    report = "\n".join(
+        f"  {r.ebn0_db} dB: FER {m.fer:.3e} {m.fer_ci} vs golden "
+        f"{r.fer:.3e} {r.fer_ci}; BER {m.ber:.3e} vs golden {r.ber:.3e}"
+        for m, r in pairs
+    )
+    return fer_pass and ber_pass, (
+        f"FER {'pass' if fer_pass else 'FAIL'}, "
+        f"BER {'pass' if ber_pass else 'FAIL'}\n{report}"
+    )
+
+
 def _borrow_design_effect(ra: PointResult, rb: PointResult):
     """If exactly one of the pair tracks bit_errors_sq, synthesize the
     other's statistic from the same design effect D = sum(w^2)/sum(w):

@@ -2,7 +2,7 @@
 
 Mirrors the reference's main loop (SURVEY.md §3.1): for each (code, decoder,
 Eb/N0) grid point, run batched frames until the stopping rule fires, tallying
-message-bit errors and frame errors. TPU-first shape: the whole
+message-bit errors and frame errors. Device-first shape: the whole
 encode->channel->decode->tally step is ONE jitted function with Eb/N0 as a
 traced scalar (one compilation covers every grid point), and batches are
 large so device time dominates dispatch.
@@ -45,10 +45,9 @@ class SweepSpec:
     backend: Optional[str] = None  # decoder backend override
     channel: str = "bpsk"  # channel-spec string (chan/modem.py)
     # fused_step=True compiles encode+channel+decode+tally as ONE module
-    # (fewest dispatches). Some big structured codes (5G NR) make that
-    # monolithic module pathologically slow to compile on this platform's
-    # remote helper even though every stage compiles fast alone; staged
-    # mode jits the stages separately at the cost of a few extra
+    # (fewest dispatches). Some big structured codes (5G NR) can make that
+    # monolithic module far slower to compile than its stages alone;
+    # staged mode jits the stages separately at the cost of a few extra
     # dispatches per step.
     fused_step: bool = True
 
@@ -342,10 +341,10 @@ def run_sweep_sharded(
     resume_path: Optional[str] = None,
     progress: Optional[Callable[[PointResult], None]] = None,
 ) -> list:
-    """Pod-sharded sweep (config 5, BASELINE.json:11): the whole Eb/N0 grid
+    """Sharded sweep (config 5, BASELINE.json:11): the whole Eb/N0 grid
     advances together — codewords sharded over the 'batch' mesh axis, grid
-    points over 'snr', counters psum-reduced over ICI. Running "finished"
-    points costs nothing extra (their chips would otherwise idle), so the
+    points over 'snr', counters psum-reduced across devices. Running "finished"
+    points costs nothing extra (their devices would otherwise idle), so the
     loop continues until EVERY point satisfies the stopping rule.
 
     Counters are bit-identical to run_sweep-with-the-same-frame-count on

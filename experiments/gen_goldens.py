@@ -1,4 +1,4 @@
-"""Regenerate deep per-family golden curves on real TPU (VERDICT r1
+"""Regenerate deep per-family golden curves on the device (VERDICT r1
 item 4): >= 16384 frames at EVERY point (vs the old 256-frame points
 whose CIs were too wide to catch a 1.5x FER regression), up to 400 frame
 errors per point for ~10% CI half-width in the waterfall.
@@ -7,7 +7,7 @@ Also regenerates the 802.11n/WiMAX goldens for the RECALLED standard
 tables (the r1 curves were measured on surrogate tables — different
 codes).
 
-Run: JAX_COMPILATION_CACHE_DIR=/root/jax_cache python experiments/gen_goldens.py [out_dir]
+Run: python experiments/gen_goldens.py [out_dir]
 """
 import sys
 import time
@@ -68,8 +68,11 @@ def main() -> int:
     if args and not any(args[0] == c[0] for c in CONFIGS):
         out_dir = args.pop(0)
     only = set(args)  # config names; empty = all
+    from ecc_ldpc_tpu.compile_cache import enable_compile_cache
     from ecc_ldpc_tpu.sim import StoppingRule, SweepSpec, run_sweep
     from ecc_ldpc_tpu.sim.report import format_table, save_results
+
+    enable_compile_cache()
 
     stopping = StoppingRule(
         min_frame_errors=400, max_frames=131_072, min_frames=16_384

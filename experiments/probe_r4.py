@@ -1,17 +1,17 @@
-"""Quick TPU probes to place round-4 golden grids (throwaway harness):
+"""Quick probes to place round-4 golden grids (throwaway harness):
 recalled-BG1 waterfall position and standard-mapping 16APSK waterfall.
 
 Run: python experiments/probe_r4.py
 """
-import os
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/jax_cache")
 
 
 def main():
+    from ecc_ldpc_tpu.compile_cache import enable_compile_cache
     from ecc_ldpc_tpu.sim import StoppingRule, SweepSpec, run_sweep
     from ecc_ldpc_tpu.sim.report import format_table
+
+    enable_compile_cache()
 
     probes = [
         SweepSpec(code="nr5g/bg1/384", decoder="layered/norm:0.8125/25",

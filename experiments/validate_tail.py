@@ -1,4 +1,4 @@
-"""On-TPU tail-regression validation (VERDICT r2 item 6).
+"""On-device tail-regression validation (VERDICT r2 item 6).
 
 Both round-1 early-termination bugs lived at FER <= 1e-3 — invisible to
 the CPU golden gate, whose budget resolves only the top of the waterfall.
@@ -15,7 +15,7 @@ is binomial-over-bits and ignores frame clustering; see
 tests/ber/test_golden_gate.py). Writes a JSON report and exits nonzero
 on any divergence. Run before each round snapshot:
 
-  JAX_COMPILATION_CACHE_DIR=/root/jax_cache python experiments/validate_tail.py [out.json]
+  python experiments/validate_tail.py [out.json]
 """
 import json
 import sys
@@ -47,8 +47,11 @@ FILES = [
 def main() -> int:
     out_path = sys.argv[1] if len(sys.argv) > 1 else "VALIDATION.json"
     only = sys.argv[2] if len(sys.argv) > 2 else None  # substring filter
+    from ecc_ldpc_tpu.compile_cache import enable_compile_cache
     from ecc_ldpc_tpu.sim import StoppingRule, SweepSpec, curves_overlap, run_sweep
     from ecc_ldpc_tpu.sim.runner import PointResult
+
+    enable_compile_cache()
 
     report = {"files": {}, "ok": True}
     for fname, max_frames in FILES:

@@ -11,7 +11,7 @@ Per rate table, prints the evidence the recall claim rests on:
     short bit-level cycle through the shift-0 staircase);
   - G·H^T = 0 through the structured encoder at min/mid/max n.
 
-Run: PYTHONPATH=/root/repo python experiments/wimax_census.py
+Run (from the repository root): PYTHONPATH=. python experiments/wimax_census.py
 """
 import sys
 

@@ -140,7 +140,7 @@ def test_spec_string_dispatch():
     llr2 = 5.0 * (1.0 - 2.0 * cw2.astype(jnp.float32))
     assert bool(jnp.all(dec2(llr2).ok))
 
-    with pytest.raises(KeyError):
+    with pytest.raises(ValueError, match="backend"):
         get_decoder(g, "bitflip/30", backend="pallas")
 
 

@@ -1,7 +1,7 @@
 """Incidence-matmul decoder must match the gather-form oracle bit-exactly
 on CPU (same schedule, same CN op; only benign f32 summation-order changes).
 This is the oracle-twin methodology of SURVEY.md §4.2 item 3 applied to the
-MXU tier."""
+incidence-matmul tier."""
 import jax
 import jax.numpy as jnp
 import numpy as np

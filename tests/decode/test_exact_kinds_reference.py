@@ -1,33 +1,32 @@
-"""Native-tier exact-BP kinds (VERDICT r1 item 5): spa/minstar in the
-Pallas layered and flooding QC kernels, interpret-mode parity vs their
-XLA oracle twins.
-
-Parity contracts:
-- layered spa/minstar: BIT-exact vs decode_layered(cn=...) in f32 (same
-  op order by construction — sequential ltacc / fwd-bwd box-plus).
-- flooding spa/minstar: decision parity (bits/ok/iterations) vs
-  decode_flooding_qc; magnitudes may differ in ulps (the oracle reduces
-  log|tanh| with jnp.sum and uses arctanh; the kernel accumulates
-  sequentially and uses the log1p form).
+"""Exact-BP kinds (VERDICT r1 item 5): spa/minstar in the layered and
+flooding QC tiers against the plain-numpy reference (tests/ref_decoders.py),
+which follows each tier's op order: layered spa sums log|tanh| in edge
+order and takes log1p(t) - log1p(-t); flooding spa takes 2 atanh(t);
+minstar runs box-plus forward/backward scans. Transcendentals may differ
+from numpy in the last ulp, which must not move a decision here.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import ref_decoders as ref
 from ecc_ldpc_tpu.chan import awgn_llr
 from ecc_ldpc_tpu.codes import get_code
-from ecc_ldpc_tpu.decode.pallas.flooding_qc import make_flooding_pallas_decoder
-from ecc_ldpc_tpu.decode.pallas.layered_qc import make_layered_pallas_decoder
 from ecc_ldpc_tpu.decode.xla.flooding_qc import decode_flooding_qc
 from ecc_ldpc_tpu.decode.xla.layered import decode_layered
 from ecc_ldpc_tpu.encode.structured import build_encoder
 from ecc_ldpc_tpu.graph.qc import compile_qc_graph
 
 
+def assert_same(res, want):
+    for got, w in zip((res.bits, res.ok, res.iterations), want):
+        np.testing.assert_array_equal(np.asarray(got), w)
+
+
 @pytest.fixture(scope="module")
 def wimax_case():
-    spec = get_code("wimax/576/12")  # Z=24 (divisible by 8), dup-free
+    spec = get_code("wimax/576/12")  # Z=24, dup-free
     graph = compile_qc_graph(spec)
     enc = build_encoder(spec)
     key = jax.random.key(42)
@@ -38,40 +37,24 @@ def wimax_case():
 
 @pytest.mark.parametrize("kind", ["spa", "minstar"])
 @pytest.mark.parametrize("early_term", [True, False])
-def test_layered_exact_kind_bit_exact(wimax_case, kind, early_term):
+def test_layered_exact_kind_matches_reference(wimax_case, kind, early_term):
     spec, graph, llr = wimax_case
-    dec = make_layered_pallas_decoder(
-        graph, kind=kind, max_iters=8, early_term=early_term,
-        interpret=True, batch_tile=16,
-    )
-    got = dec(llr)
-    want = decode_layered(graph, llr, cn=kind, max_iters=8,
-                          early_term=early_term)
-    assert np.array_equal(np.asarray(got.bits), np.asarray(want.bits))
-    assert np.array_equal(np.asarray(got.ok), np.asarray(want.ok))
-    assert np.array_equal(
-        np.asarray(got.iterations), np.asarray(want.iterations)
-    )
+    got = jax.jit(lambda l: decode_layered(
+        graph, l, cn=kind, max_iters=8, early_term=early_term))(llr)
+    assert_same(got, ref.layered_qc(graph, np.asarray(llr), cn=kind,
+                                    max_iters=8, early_term=early_term))
     # at 2.2 dB with 8 iterations some frames decode, some don't — both
     # outcomes must be present or the parity assertions are weak
     assert 0 < np.asarray(got.ok).sum() <= len(np.asarray(got.ok))
 
 
 @pytest.mark.parametrize("kind", ["spa", "minstar"])
-def test_flooding_exact_kind_decision_parity(wimax_case, kind):
+def test_flooding_exact_kind_matches_reference(wimax_case, kind):
     spec, graph, llr = wimax_case
-    dec = make_flooding_pallas_decoder(
-        graph, kind=kind, max_iters=8, early_term=True,
-        interpret=True, batch_tile=16,
-    )
-    got = dec(llr)
-    want = decode_flooding_qc(graph, llr, kind=kind, max_iters=8,
-                              early_term=True)
-    assert np.array_equal(np.asarray(got.ok), np.asarray(want.ok))
-    assert np.array_equal(np.asarray(got.bits), np.asarray(want.bits))
-    assert np.array_equal(
-        np.asarray(got.iterations), np.asarray(want.iterations)
-    )
+    got = jax.jit(lambda l: decode_flooding_qc(
+        graph, l, kind=kind, max_iters=8, early_term=True))(llr)
+    assert_same(got, ref.flooding_qc(graph, np.asarray(llr), kind=kind,
+                                     max_iters=8, early_term=True))
 
 
 def test_layered_exact_kinds_beat_minsum_fer(wimax_case):
@@ -117,22 +100,14 @@ def ccsds_case():
 
 @pytest.mark.parametrize("kind", ["spa", "minstar"])
 @pytest.mark.parametrize("early_term", [True, False])
-def test_layered_exact_kind_multiedge_bit_exact(ccsds_case, kind, early_term):
-    """Exact BP on a DUP graph: the Pallas classic-exact sweep must be
-    bit-exact vs the oracle's dup path (r2 item 7 — previously both
-    tiers raised NotImplementedError)."""
+def test_layered_exact_kind_multiedge_matches_reference(ccsds_case, kind,
+                                                        early_term):
+    """Exact BP on a DUP graph: the accumulate path, with minstar's
+    posterior deltas applied in the backward order of its scan."""
     spec, graph, llr = ccsds_case
-    dec = make_layered_pallas_decoder(
-        graph, kind=kind, max_iters=6, early_term=early_term,
-        interpret=True, batch_tile=16,
-    )
-    got = dec(llr)
-    want = decode_layered(graph, llr, cn=kind, max_iters=6,
-                          early_term=early_term)
-    assert np.array_equal(np.asarray(got.bits), np.asarray(want.bits))
-    assert np.array_equal(np.asarray(got.ok), np.asarray(want.ok))
-    assert np.array_equal(
-        np.asarray(got.iterations), np.asarray(want.iterations)
-    )
+    got = jax.jit(lambda l: decode_layered(
+        graph, l, cn=kind, max_iters=6, early_term=early_term))(llr)
+    assert_same(got, ref.layered_qc(graph, np.asarray(llr), cn=kind,
+                                    max_iters=6, early_term=early_term))
     # the parity must be exercised by a mixed population
     assert 0 < np.asarray(got.ok).sum() < len(np.asarray(got.ok))

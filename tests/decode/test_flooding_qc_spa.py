@@ -1,5 +1,5 @@
-"""Roll-form exact-BP decoders (spa / minstar) on QC graphs — the TPU-safe
-flooding sum-product tier (gather-form SPA is CPU-only; see dense_mm.py).
+"""Roll-form exact-BP decoders (spa / minstar) on QC graphs — the
+gather-free flooding sum-product tier of the QC families.
 """
 import jax
 import jax.numpy as jnp
@@ -89,7 +89,7 @@ def test_spa_beats_minsum_at_fixed_seed(code):
 
 def test_sweep_runs_spa_on_qc_code():
     """The Monte-Carlo runner routes QC codes through the QC block view
-    for spa (TPU-safe roll form)."""
+    for spa (the roll form)."""
     from ecc_ldpc_tpu.sim import StoppingRule, SweepSpec, run_sweep
 
     res = run_sweep(SweepSpec(

@@ -39,7 +39,7 @@ def test_spec_parsing():
     g = compile_qc_graph(get_code("80211n/648/12"))
     with pytest.raises(KeyError):
         get_decoder(g, "minsum/q:5:0.5/25")  # layered-tier option only
-    with pytest.raises(KeyError):
+    with pytest.raises(ValueError, match="backend"):
         get_decoder(g, "layered/q:5:0.5/25", backend="pallas")
 
 

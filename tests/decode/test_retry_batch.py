@@ -1,9 +1,9 @@
 """Stored trapping-set failure batch regression (r5, VERDICT r4 item 3b).
 
 tests/data/trap_batch_dvbs2_64800_12.npz holds real channel LLR rows
-harvested on the TPU (experiments/floor_r5.py) for which layered/50
-min-sum fails on BOTH the production Pallas tier and the XLA f32 tier
-(filtered at harvest time so the failure reproduces off-TPU). This pins:
+harvested by experiments/floor_r5.py for which layered/50 min-sum fails
+on the XLA f32 tier (filtered at harvest time so the failure reproduces
+on the CPU). This pins:
 
   * the failure mode itself — layered/50 must KEEP failing these frames
     (if a refactor silently changes decoder dynamics, this trips);

@@ -79,7 +79,7 @@ def test_graph_parallel_shard_count_invariant(code):
         assert np.array_equal(outs[0][0][ok], bits[ok])
 
 
-# --- TPU-legal Z-sharded tier (VERDICT r1 item 3) ---------------------------
+# --- Z-sharded QC tier (VERDICT r1 item 3) ----------------------------------
 
 from ecc_ldpc_tpu.codes import get_code
 from ecc_ldpc_tpu.decode.xla.flooding_qc import decode_flooding_qc

@@ -1,6 +1,7 @@
 """Multi-host rendezvous smoke (SURVEY.md §4.2 item 4: num_processes=1)."""
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -17,6 +18,6 @@ def test_distributed_initialize_single_process():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
-        timeout=120, cwd="/root/repo",
+        timeout=120, cwd=Path(__file__).resolve().parents[2],
     )
     assert "OK" in out.stdout, out.stderr[-500:]

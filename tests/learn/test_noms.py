@@ -55,8 +55,8 @@ def test_shipped_schedule_loads_and_decodes():
     assert np.all(np.asarray(p.alphas) > 0.5)
     # drive the schedule arrays through the layered decoder on a SMALL
     # code (a 64800-scale CPU compile took ~95 s of the fast suite; the
-    # schedule/decoder pairing at full scale is pinned by the TPU-measured
-    # numbers in the schedule JSON and tests/ber)
+    # schedule/decoder pairing at full scale is pinned by the FER numbers
+    # in the schedule JSON and tests/ber)
     spec = get_code("80211n/648/12")
     qg = compile_qc_graph(spec)
     dec = make_layered_decoder(qg, alpha=p.alphas[:3], beta=p.betas[:3],

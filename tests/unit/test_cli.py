@@ -104,3 +104,24 @@ def test_trap_command(tmp_path, capsys):
     data = json.loads(open(out_file).read())
     assert data["frames"] == 128 and data["n_failures"] > 0
     assert data["histogram"] and data["dominant_sets"]
+
+
+def test_single_host_rendezvous_is_a_no_op():
+    """`sweep --mesh` calls maybe_init_distributed() with no arguments; on
+    one host with no cluster manager JAX finds no coordinator, and the
+    call must leave a single-process run, not fail."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[2]
+    code = ("import jax\n"
+            "from ecc_ldpc_tpu.dist import maybe_init_distributed\n"
+            "maybe_init_distributed()\n"
+            "print(jax.process_count())\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(root))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "1"

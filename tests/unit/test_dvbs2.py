@@ -66,8 +66,11 @@ def test_bad_args():
         dvbs2(64800, "11")
 
 
-def test_pallas_supported():
-    from ecc_ldpc_tpu.decode.pallas.layered_qc import supports
-
-    for rate in ["12", "34", "910"]:
-        assert supports(compile_qc_graph(dvbs2(64800, rate)))
+@pytest.mark.parametrize("rate", ["12", "34", "910"])
+def test_layered_tier_takes_the_set_form(rate):
+    """The standard tables put one shift per base cell, so every layer is
+    duplicate-free and the layered tier uses its one-roll set-form
+    update; each block-row meets each block-column at most once."""
+    g = compile_qc_graph(dvbs2(64800, rate))
+    assert g.intra_layer_dup_free
+    assert sorted(g.layer_order) == list(range(g.mb))

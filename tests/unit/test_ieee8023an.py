@@ -72,7 +72,7 @@ def test_encode_decode_roundtrip(spec):
     got = np.asarray(enc.extract_message(res.bits))
     assert (got == np.asarray(msg)).all()
     assert np.asarray(res.ok).all()
-    # the TPU-safe incidence-matmul tier must serve the code bit-
-    # identically to the gather oracle (this is its TPU decode path)
+    # the incidence-matmul tier must serve the code bit-identically to
+    # the gather oracle
     mm = get_decoder(graph, "minsum/norm:0.8125/25", backend="xla-mm")(llr)
     assert (np.asarray(mm.bits) == np.asarray(res.bits)).all()

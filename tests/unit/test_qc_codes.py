@@ -63,10 +63,10 @@ def test_qc_graph_compile():
     g = compile_qc_graph(spec)
     assert g.Z == 27 and g.mb == 12 and g.nb == 24
     assert g.num_block_edges == int((spec.qc.base >= 0).sum())
-    # row/col views are consistent
+    # per-layer edge lists match the base matrix rows
     for i in range(g.mb):
         edges = g.layer_edges(i)
-        assert len(edges) == int(np.asarray(g.row_mask)[i].sum())
+        assert len(edges) == int((spec.qc.base[i] >= 0).sum())
 
 
 def test_bad_args_rejected():

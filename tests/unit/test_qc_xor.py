@@ -108,12 +108,17 @@ def test_layered_qc_xor_noiseless_and_syndrome():
         assert spec.check_syndrome(bits[i])
 
 
-def test_pallas_tiers_gate_off_xor_graphs():
-    from ecc_ldpc_tpu.decode.pallas import flooding_qc, layered_qc
+def test_auto_route_serves_xor_graphs_with_every_kind():
+    """The auto route decodes xor graphs through the XLA tiers with every
+    soft kind: noiseless input converges in 0 iterations."""
+    from ecc_ldpc_tpu.decode import make_decoder
 
-    _, qg = _toy_graph()
-    assert not layered_qc.supports(qg)
-    assert not flooding_qc.supports(qg)
+    spec, qg = _toy_graph()
+    llr = jnp.full((4, spec.n), 12.0)
+    for kind in ("layered", "minsum", "spa", "minstar"):
+        res = make_decoder(qg, kind, max_iters=5)(llr)
+        assert np.asarray(res.ok).all(), kind
+        assert (np.asarray(res.iterations) == 0).all(), kind
 
 
 def test_graph_parallel_rejects_xor():

@@ -53,7 +53,7 @@ def test_dvbs2_family_sane():
     th34 = de_threshold_ebn0(get_code("dvbs2/64800/34"))
     assert 0.4 < th12 < 1.1  # real standard: ~0.8 dB
     assert th12 < th34 < 2.5
-    # the measured TPU golden waterfall must sit ABOVE the asymptotic
+    # the measured golden waterfall must sit ABOVE the asymptotic
     # threshold (finite length costs SNR, never gains)
     import json, pathlib
 
